@@ -118,3 +118,10 @@ def make_packfile(img_root, lst_path, bin_path, n, seed=0, side=48,
         f.write("\n".join(lines) + "\n")
     binpage.pack_images(str(lst_path), str(img_root), str(bin_path),
                         silent=True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the PyTorch port's kernels have no CPU "
+        "mode); skips without one")
