@@ -10,7 +10,7 @@ that ``weights.from_jax_params`` turns into the port's tensors.
 
 Sharded ``.model`` directories (``save_sharded = 1``) and binary models
 of the original C++ framework load in the JAX package only, for now
-(ROADMAP.md, training slice).
+(ROADMAP.md, CNN zoo and data slice).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import json
 import os
 import re
 import zipfile
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -30,20 +30,24 @@ MAGIC = "cxxnet_tpu.model.v1"
 
 
 def save_model(path: str, net_cfg: NetConfig, epoch_counter: int,
-               params) -> None:
-    """Write one .model file (structure + epoch + weights, no optimizer
-    state); array leaves are numpy arrays (or anything ``np.asarray``
-    takes)."""
+               params, opt_state=None) -> None:
+    """Write one .model file (structure + epoch + weights [+ optimizer
+    slots ``O<layer>:<tag>:<slot>``]); array leaves are numpy arrays (or
+    anything ``np.asarray`` takes)."""
     header = {
         "magic": MAGIC,
         "net_type": 0,
         "epoch_counter": int(epoch_counter),
         "structure": net_cfg.structure_state(),
-        "has_opt_state": False,
+        "has_opt_state": opt_state is not None,
     }
     arrays = {"L%d:%s" % (li, tag): np.asarray(v)
               for li, p in enumerate(params) if p
               for tag, v in p.items()}
+    for li, p in enumerate(opt_state or []):
+        for tag, slots in (p or {}).items():
+            for slot, v in slots.items():
+                arrays["O%d:%s:%s" % (li, tag, slot)] = np.asarray(v)
     buf = io.BytesIO()
     np.savez(buf, **arrays)
     tmp = path + ".tmp"
@@ -79,7 +83,7 @@ def load_model(path: str):
     if os.path.isdir(path):
         raise NotImplementedError(
             "%s: sharded .model directories load in cxxnet_tpu only; the "
-            "port's loader for them comes with the training slice "
+            "port's loader for them comes with the CNN zoo and data slice "
             "(ROADMAP.md)" % path)
     if not zipfile.is_zipfile(path):
         raise ValueError(
@@ -101,3 +105,20 @@ def load_model(path: str):
 
 def model_path(model_dir: str, counter: int) -> str:
     return os.path.join(model_dir, "%04d.model" % counter)
+
+
+def find_latest_model(model_dir: str, start_counter: int = 0
+                      ) -> Optional[Tuple[str, int]]:
+    """The newest ``model_dir/%04d.model`` at or above ``start_counter``
+    (reference SyncLastestModel, cxxnet_main.cpp:135-157; a directory
+    listing, as the JAX package scans it): (path, counter) or None."""
+    counters = []
+    if os.path.isdir(model_dir):
+        for f in os.listdir(model_dir):
+            m = re.match(r"(\d+)\.model$", f)
+            if m and int(m.group(1)) >= start_counter:
+                counters.append(int(m.group(1)))
+    if not counters:
+        return None
+    c = max(counters)
+    return model_path(model_dir, c), c

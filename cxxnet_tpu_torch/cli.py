@@ -1,15 +1,24 @@
 """CLI task driver: ``python -m cxxnet_tpu_torch config.conf [k=v ...]``.
 
 The same argv contract as ``python -m cxxnet_tpu`` (a config file plus
-``k=v`` overrides). This slice runs ``task = serve`` with ``model_in =
-<checkpoint>``: load the net from a ``.model`` file either package
-wrote, on the device ``dev`` names (CUDA unless ``dev = cpu``), and
-serve it over HTTP through the dynamic-batching engine. Serve keys as in
-cxxnet_tpu: serve_host (default 127.0.0.1), serve_port (default 8080; 0
-binds a free port), serve_max_wait_ms (default 5), serve_max_batch
-(default the batch size), serve_queue_limit (default 64),
-serve_timeout_ms (default 30000), serve_dispatch_depth (default 2),
-serve_warmup (default 1).
+``k=v`` overrides), on the device ``dev`` names (CUDA unless ``dev =
+cpu``). Two tasks run:
+
+* ``task = train`` (the default; reference: cxxnet_main.cpp:344-412,
+  cxxnet_tpu/cli.py:594-750): ``num_round`` rounds over the ``data``
+  iterator, each ended by a ``[round]\ttrain-...\t<eval>-...`` metric
+  line on stderr, a checkpoint ``model_dir/%04d.model`` every
+  ``save_model`` rounds; ``model_in`` starts from a checkpoint either
+  package wrote (its optimizer slots included), ``continue = 1`` from the
+  newest one in ``model_dir``; ``print_step`` batches between progress
+  lines.
+* ``task = serve`` with ``model_in = <checkpoint>``: the net served over
+  HTTP through the dynamic-batching engine. Serve keys as in cxxnet_tpu:
+  serve_host (default 127.0.0.1), serve_port (default 8080; 0 binds a
+  free port), serve_max_wait_ms (default 5), serve_max_batch (default
+  the batch size), serve_queue_limit (default 64), serve_timeout_ms
+  (default 30000), serve_dispatch_depth (default 2), serve_warmup
+  (default 1).
 
 Every other task, exported artifacts (``export_in``) and the replica
 router raise ``NotImplementedError`` naming the ROADMAP.md slice that
@@ -18,10 +27,13 @@ brings them.
 
 from __future__ import annotations
 
+import os
 import sys
+import time
 from typing import List, Optional, Tuple
 
-from . import config
+from . import checkpoint, config
+from .io import DataIterator, create_iterator
 from .serve.engine import ServingEngine
 from .serve.server import ServeHTTPServer, build_server
 from .trainer import Trainer
@@ -29,11 +41,12 @@ from .trainer import Trainer
 ConfigEntry = Tuple[str, str]
 
 _LATER_TASKS = {
-    "train": "the training slice", "finetune": "the training slice",
-    "pred": "the training slice", "extract": "the training slice",
+    "finetune": "the CNN zoo and data slice",
+    "pred": "the CNN zoo and data slice",
+    "extract": "the CNN zoo and data slice",
+    "export_reference": "the CNN zoo and data slice",
     "generate": "the decode slice",
     "export_model": "the paged-serving slice (artifact export)",
-    "export_reference": "the training slice",
 }
 
 
@@ -42,18 +55,43 @@ class LearnTask:
         self.cfg: List[ConfigEntry] = []
         self.task = "train"
         self.model_in = "NULL"
+        self.model_dir = "models"
+        self.num_round = 10
+        self.max_round = 1 << 31
+        self.start_counter = 0
+        self.continue_training = 0
+        self.save_period = 1
+        self.print_step = 100
         self.silent = 0
         self.trainer: Optional[Trainer] = None
+        self.itr_train: Optional[DataIterator] = None
+        self.itr_evals: List[DataIterator] = []
+        self.eval_names: List[str] = []
         self.engine: Optional[ServingEngine] = None
         self.server: Optional[ServeHTTPServer] = None
 
     def set_param(self, name: str, val: str) -> None:
+        """Reference: cxxnet_main.cpp:83-105."""
         if val == "default":
             return
         if name == "task":
             self.task = val
         elif name == "model_in":
             self.model_in = val
+        elif name == "model_dir":
+            self.model_dir = val
+        elif name == "num_round":
+            self.num_round = int(val)
+        elif name == "max_round":
+            self.max_round = int(val)
+        elif name == "start_counter":
+            self.start_counter = int(val)
+        elif name == "continue":
+            self.continue_training = int(val)
+        elif name == "save_model":
+            self.save_period = int(val)
+        elif name == "print_step":
+            self.print_step = int(val)
         elif name == "silent":
             self.silent = int(val)
         self.cfg.append((name, val))
@@ -73,11 +111,24 @@ class LearnTask:
         self.init()
         if not self.silent:
             print("initializing end, start working")
-        self.task_serve()
+        if self.task == "train":
+            self.task_train()
+        else:
+            self.task_serve()
         return 0
 
+    def _create_trainer(self) -> Trainer:
+        tr = Trainer()
+        for k, v in self.cfg:
+            tr.set_param(k, v)
+        return tr
+
     def init(self) -> None:
-        """Check the task is one this slice runs, then load the model."""
+        """Check the task is one this slice runs, then build or load the
+        model and the iterators (reference: cxxnet_main.cpp:108-133)."""
+        if self.task == "train":
+            self._init_train()
+            return
         if self.task != "serve":
             raise NotImplementedError(
                 "task=%s is not ported yet: it comes with %s (ROADMAP.md)"
@@ -94,10 +145,126 @@ class LearnTask:
                 "paged-serving slice (ROADMAP.md)")
         if self.model_in == "NULL":
             raise RuntimeError("task=serve needs model_in=<ckpt>")
-        self.trainer = Trainer()
-        for k, v in self.cfg:
-            self.trainer.set_param(k, v)
+        self.trainer = self._create_trainer()
         self.trainer.load_model(self.model_in)
+
+    def _init_train(self) -> None:
+        if self.continue_training:
+            found = checkpoint.find_latest_model(self.model_dir,
+                                                 self.start_counter)
+            if found is None:
+                raise RuntimeError(
+                    "Init: cannot find models for continue training; "
+                    "specify model_in instead")
+            path, counter = found
+            print("Init: Continue training from round %d" % counter)
+            self.trainer = self._create_trainer()
+            self.trainer.load_model(path)
+            self.start_counter = counter + 1
+        elif self.model_in == "NULL":
+            self.trainer = self._create_trainer()
+            self.trainer.init_model()
+        else:
+            self.trainer = self._create_trainer()
+            self.trainer.load_model(self.model_in)
+            base = os.path.basename(self.model_in).split(".")[0]
+            if base.isdigit():
+                self.start_counter = int(base)
+            self.start_counter += 1
+        self.create_iterators()
+
+    def create_iterators(self) -> None:
+        """Order-sensitive iterator sections (reference:
+        cxxnet_main.cpp:214-264): data/eval ... iter=end. Global keys are
+        broadcast to every iterator before init, which is how a global
+        ``batch_size``/``input_shape`` reaches the pipeline."""
+        flag = 0
+        evname = ""
+        itcfg: List[ConfigEntry] = []
+        defcfg: List[ConfigEntry] = []
+        pending = []
+        for name, val in self.cfg:
+            if name in ("data", "eval", "pred"):
+                flag = {"data": 1, "eval": 2, "pred": 3}[name]
+                evname = val
+                continue
+            if name == "iter" and val == "end":
+                pending.append((flag, evname, itcfg))
+                flag = 0
+                itcfg = []
+                continue
+            if flag != 0:
+                itcfg.append((name, val))
+            else:
+                defcfg.append((name, val))
+        for flag, evname, itcfg in pending:
+            if flag == 1:
+                if self.itr_train is not None:
+                    raise ValueError("can only have one data")
+                self.itr_train = create_iterator(itcfg, defcfg)
+            elif flag == 2:
+                self.itr_evals.append(create_iterator(itcfg, defcfg))
+                self.eval_names.append(evname)
+
+    def save_model_file(self) -> None:
+        """Reference: cxxnet_main.cpp:173-182 (cadence check + %04d
+        name; the reference checks the incremented counter)."""
+        counter = self.start_counter
+        self.start_counter += 1
+        if self.save_period == 0 or self.start_counter % self.save_period:
+            return
+        os.makedirs(self.model_dir, exist_ok=True)
+        self.trainer.save_model(checkpoint.model_path(self.model_dir,
+                                                      counter))
+
+    def _eval_line(self) -> str:
+        if not self.itr_evals:
+            return self.trainer.evaluate(None, "train")
+        return "".join(self.trainer.evaluate(itr, name) for itr, name
+                       in zip(self.itr_evals, self.eval_names))
+
+    def task_train(self) -> None:
+        """Reference: cxxnet_main.cpp:344-412."""
+        start = time.time()
+        tr = self.trainer
+        if self.continue_training == 0 and self.model_in == "NULL":
+            self.save_model_file()
+        else:
+            sys.stderr.write(self._eval_line() + "\n")
+            sys.stderr.flush()
+        if self.itr_train is None:
+            return
+        rounds = self.max_round
+        while self.start_counter <= self.num_round and rounds > 0:
+            rounds -= 1
+            if not self.silent:
+                print("update round %d" % (self.start_counter - 1), end="")
+                sys.stdout.flush()
+            tr.start_round(self.start_counter)
+            t0 = time.time()
+            steps = 0
+            self.itr_train.before_first()
+            while self.itr_train.next():
+                tr.update(self.itr_train.value)
+                steps += 1
+                if not self.silent and self.print_step > 0 \
+                        and steps % self.print_step == 0:
+                    print("\r%80s\rround %8d:[%8d] %d sec elapsed"
+                          % ("", self.start_counter - 1, steps,
+                             int(time.time() - start)), end="")
+                    sys.stdout.flush()
+            sys.stderr.write("[%d]" % self.start_counter + self._eval_line()
+                             + "\n")
+            sys.stderr.flush()
+            if not self.silent:
+                dt = time.time() - t0
+                print("\nround %d: %d steps, %.1f images/s (round wall "
+                      "time, metric pass included)"
+                      % (self.start_counter, steps,
+                         steps * tr.batch_size / max(dt, 1e-9)))
+            self.save_model_file()
+        if not self.silent:
+            print("\nupdating end, %d sec in all" % int(time.time() - start))
 
     def start_serving(self) -> ServeHTTPServer:
         """Build the engine (warming it up) and bind the HTTP server;

@@ -1,13 +1,13 @@
-"""Layer library of the port: the cxxnet layers AlexNet serving runs, in
-PyTorch, with the JAX package's names, knobs, shape rules and parameter
-layouts (``cxxnet_tpu/layers.py``).
+"""Layer library of the port: the cxxnet layers AlexNet trains and serves
+with, in PyTorch, with the JAX package's names, knobs, shape rules and
+parameter layouts (``cxxnet_tpu/layers.py``).
 
 Each layer is configured with ``set_param``, infers its output shapes
-with ``infer_shape`` and runs ``apply(params, inputs, ctx)`` on tensors.
-This slice is inference only: ``apply`` under ``ctx.train`` raises, and
-the layer types of later slices are registered (so netconfigs parse)
-but raise ``NotImplementedError`` naming their ROADMAP.md slice when a
-net is built with them.
+with ``infer_shape`` and runs ``apply(params, inputs, ctx)`` on tensors;
+gradients come from autograd, through the hand-written backward kernels
+for conv and LRN (ops/). The layer types of later slices are registered
+(so netconfigs parse) but raise ``NotImplementedError`` naming their
+ROADMAP.md slice when a net is built with them.
 
 Rounding points follow the JAX layers exactly, since whole-net parity
 depends on them: activations between layers are float32; conv and fullc
@@ -18,7 +18,7 @@ casting back to float32 (layers.py:1126, 347); LRN sees float32.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -144,12 +144,22 @@ class LayerParam:
 
 @dataclass
 class ApplyContext:
-    """Per-forward context threaded through layer application."""
+    """Per-forward context threaded through layer application
+    (``cxxnet_tpu/layers.py:162``)."""
     train: bool = False
     compute_dtype: torch.dtype = torch.float32
     # True runs each kernel's plain PyTorch version on any device: the
-    # reference the served answers are held against on the card
+    # reference the kernels are held against on the card
     plain: bool = False
+    labels: Optional[List[torch.Tensor]] = None   # one (batch, w) a field
+    losses: List[torch.Tensor] = field(default_factory=list)
+    batch_size: int = 1
+    update_period: int = 1
+    # the train-time randomness (dropout masks), on the net's device
+    generator: Optional[torch.Generator] = None
+    # False when no layer upstream holds trainable parameters: the conv
+    # then takes no input gradient (set per layer by model.py)
+    needs_input_grad: bool = True
 
 
 def _mat(x: torch.Tensor) -> torch.Tensor:
@@ -299,7 +309,10 @@ class SoftplusLayer(_ActivationLayer):
 @register("dropout")
 class DropoutLayer(Layer):
     """Self-loop dropout (reference: src/layer/dropout_layer-inl.hpp:12-70):
-    the identity at inference, which is all this slice runs."""
+    mask = (u < pkeep)/pkeep at train time, u uniform from the context's
+    generator; the identity at inference. The JAX layer draws u from
+    threefry keys, so the two packages' masks differ bit for bit; their
+    distribution is the same."""
 
     def __init__(self):
         super().__init__()
@@ -317,11 +330,13 @@ class DropoutLayer(Layer):
         return [in_shapes[0]]
 
     def apply(self, params, inputs, ctx):
-        if ctx.train and self.threshold > 0.0:
-            raise NotImplementedError(
-                "dropout at train time comes with the training slice "
-                "(ROADMAP.md)")
-        return [inputs[0]]
+        x = inputs[0]
+        if not ctx.train or self.threshold == 0.0:
+            return [x]
+        pkeep = 1.0 - self.threshold
+        u = torch.rand(x.shape, generator=ctx.generator, device=x.device)
+        mask = (u < pkeep).to(x.dtype) / pkeep
+        return [x * mask]
 
 
 # ======================================================================
@@ -365,7 +380,7 @@ class ConvolutionLayer(Layer):
                 raise NotImplementedError(
                     "conv_impl=%s: the port runs convs through its "
                     "row-GEMM kernel (conv_impl=pallas|auto); strided and "
-                    "wide-pad convs come with the training slice "
+                    "wide-pad convs come with the CNN zoo and data slice "
                     "(ROADMAP.md)" % val)
             self.impl = val
         else:
@@ -416,7 +431,10 @@ class ConvolutionLayer(Layer):
 
     def apply(self, params, inputs, ctx):
         p = self.param
-        x = inputs[0].to(ctx.compute_dtype)
+        x = inputs[0]
+        if not ctx.needs_input_grad:
+            x = x.detach()
+        x = x.to(ctx.compute_dtype)
         g = p.num_group
         co_g = p.num_channel // g
         ci_g = p.num_input_channel // g
@@ -437,9 +455,8 @@ class ConvolutionLayer(Layer):
             stride, pad = 1, (0, 0)
         else:
             stride, pad = p.stride, (p.pad_y, p.pad_x)
-        fn = conv_ops.conv_plain if ctx.plain else conv_ops.conv
-        out = fn(x, kernel.to(ctx.compute_dtype), stride=stride, pad=pad,
-                 groups=g).float()
+        out = conv_ops.conv_layer(x, kernel.to(ctx.compute_dtype), stride,
+                                  pad, g, plain=ctx.plain).float()
         if p.no_bias == 0:
             out = out + params["bias"].reshape(1, -1, 1, 1)
         return [out]
@@ -600,9 +617,8 @@ class LRNLayer(Layer):
             super().set_param(name, val)
 
     def apply(self, params, inputs, ctx):
-        fn = lrn_ops.lrn_plain if ctx.plain else lrn_ops.lrn
-        return [fn(inputs[0], self.nsize, self.alpha, self.beta,
-                   self.knorm)]
+        return [lrn_ops.lrn_layer(inputs[0], self.nsize, self.alpha,
+                                  self.beta, self.knorm, plain=ctx.plain)]
 
 
 @register("lrn_pallas")
@@ -616,12 +632,16 @@ class LRNPallasLayer(LRNLayer):
 
 
 # ======================================================================
-# loss layers (self-loop); inference transforms only
+# loss layers (self-loop)
 # ======================================================================
 class _LossLayer(Layer):
     """Self-loop loss (reference: src/layer/loss/loss_layer_base-inl.hpp:11-133).
-    At inference it only transforms its node (softmax probabilities);
-    the loss terms come with the training slice."""
+
+    Forward transforms the node (softmax probabilities) so that eval and
+    predict see scores. With labels in the context it also appends to
+    ``ctx.losses`` the term whose gradient is the reference's
+    (p - y) * grad_scale / (batch_size * update_period) at the node's
+    input (``cxxnet_tpu/layers.py:1648-1682``)."""
     is_loss = True
 
     def __init__(self):
@@ -643,25 +663,49 @@ class _LossLayer(Layer):
         self.target_index = self.label_name_map[self.target]
         return [in_shapes[0]]
 
+    def _scale(self, ctx: ApplyContext) -> float:
+        return self.grad_scale / (ctx.batch_size * ctx.update_period)
+
+    def _label(self, ctx: ApplyContext) -> torch.Tensor:
+        return ctx.labels[self.target_index]
+
 
 def _stable_logits(logits: torch.Tensor) -> torch.Tensor:
-    """Pre-subtract the row max before softmax (layers.py:2164)."""
-    return logits - logits.amax(dim=-1, keepdim=True)
+    """Pre-subtract the row max, out of the gradient, before softmax
+    (layers.py:2164)."""
+    return logits - logits.amax(dim=-1, keepdim=True).detach()
 
 
 @register("softmax")
 class SoftmaxLayer(_LossLayer):
-    """Softmax (reference: src/layer/loss/softmax_layer-inl.hpp:12-36): the
-    node becomes per-instance probabilities, or per-position ones on a
-    (b, 1, s, V) sequence node."""
+    """Softmax + cross entropy (reference:
+    src/layer/loss/softmax_layer-inl.hpp:12-36): the node becomes
+    per-instance probabilities, or per-position ones on a (b, 1, s, V)
+    sequence node; with labels the loss term is scale * sum_i -log
+    p_i[y_i] (per token on a sequence node), layers.py:2188-2219."""
 
     def apply(self, params, inputs, ctx):
         n, c, s, v = inputs[0].shape
-        if c == 1 and s > 1:
-            logits = inputs[0].reshape(n, s, v)
-        else:
-            logits = _mat(inputs[0])
-        probs = torch.softmax(_stable_logits(logits), dim=-1)
+        seq = c == 1 and s > 1
+        logits = _stable_logits(inputs[0].reshape(n, s, v) if seq
+                                else _mat(inputs[0]))
+        probs = torch.softmax(logits, dim=-1)
+        if ctx.labels is not None:
+            logp = torch.log_softmax(logits, dim=-1)
+            if seq:
+                y = self._label(ctx).long()
+                if y.shape[1] != s:
+                    raise ValueError(
+                        "softmax on a %d-position sequence needs an "
+                        "equally wide label field (declare "
+                        "label_vec[0,%d) = %s and set label_width); got "
+                        "width %d" % (s, s, self.target, y.shape[1]))
+                ce = -torch.gather(logp, 2, y[..., None]).sum()
+                ctx.losses.append(ce * self._scale(ctx) / s)
+            else:
+                y = self._label(ctx)[:, 0].long()
+                ce = -torch.gather(logp, 1, y[:, None]).sum()
+                ctx.losses.append(ce * self._scale(ctx))
         return [probs.reshape(inputs[0].shape)]
 
 
@@ -669,7 +713,7 @@ class SoftmaxLayer(_LossLayer):
 # layer types of later slices: registered so netconfigs parse, raising
 # when a net is built with them
 _LATER = {
-    "training slice": (
+    "CNN zoo and data slice": (
         "bias", "split", "elewise_add", "concat", "ch_concat", "xelu",
         "insanity", "prelu", "insanity_max_pooling", "lrn_band",
         "batch_norm", "fixconn", "l2_loss", "multi_logistic"),

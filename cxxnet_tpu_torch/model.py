@@ -1,5 +1,5 @@
 """Network: the netconfig DAG interpreted into one forward function — the
-port of ``cxxnet_tpu/model.py`` in eval mode.
+port of ``cxxnet_tpu/model.py``.
 
 Semantics preserved from the reference (and the JAX Network):
   * connection order = config order; a node's value is whatever the last
@@ -8,8 +8,8 @@ Semantics preserved from the reference (and the JAX Network):
   * shared layers reuse the primary connection's parameters
     (nnet_config.h:57-59, neural_net-inl.hpp:238-244)
 
-Training (losses, gradients, the updaters) is a later slice: ``apply``
-runs inference only.
+  * with labels, the loss layers add their terms to one scalar loss,
+    whose gradient autograd takes (the updaters are in updater.py)
 """
 
 from __future__ import annotations
@@ -27,10 +27,11 @@ class Network:
     """Static model structure + init/apply over tensors on ``device``."""
 
     def __init__(self, net_cfg: NetConfig, batch_size: int,
-                 compute_dtype: str = "float32",
+                 update_period: int = 1, compute_dtype: str = "float32",
                  device: torch.device = torch.device("cpu")) -> None:
         self.cfg = net_cfg
         self.batch_size = batch_size
+        self.update_period = update_period
         self.compute_dtype = getattr(torch, compute_dtype)
         if not isinstance(self.compute_dtype, torch.dtype):
             raise ValueError("dtype=%s is not a torch dtype" % compute_dtype)
@@ -51,7 +52,8 @@ class Network:
                 type_name = net_cfg.layers[info.primary_layer_index].type
             if type_name == "pairtest":
                 raise NotImplementedError(
-                    "pairtest layers come with the training slice "
+                    "pairtest layers come with the CNN zoo and data "
+                    "slice "
                     "(ROADMAP.md)")
             mod = L.create_layer(type_name, net_cfg.effective_layer_cfg(li),
                                  net_cfg.label_name_map)
@@ -120,25 +122,43 @@ class Network:
     # ------------------------------------------------------------------
     def apply(self, params, data: torch.Tensor,
               extra_data: Sequence[torch.Tensor] = (),
-              train: bool = False, plain: bool = False
-              ) -> Dict[int, torch.Tensor]:
-        """Run the DAG; returns {node_index: value}. ``plain`` runs each
-        kernel's plain PyTorch version instead of the kernel (the
-        reference forward)."""
-        if train:
-            raise NotImplementedError(
-                "training comes with the training slice (ROADMAP.md)")
-        ctx = L.ApplyContext(train=False, compute_dtype=self.compute_dtype,
-                             plain=plain)
+              labels: Optional[List[torch.Tensor]] = None,
+              train: bool = False, plain: bool = False,
+              generator: Optional[torch.Generator] = None
+              ) -> Tuple[Dict[int, torch.Tensor], torch.Tensor]:
+        """Run the DAG; returns ({node_index: value}, scalar loss)
+        (cxxnet_tpu/model.py:153-225). ``labels`` is the list of label
+        fields in label_range order; without them the loss is 0.
+        ``train`` turns on dropout, drawn from ``generator``. ``plain``
+        runs each kernel's plain PyTorch version instead of the kernel
+        (the reference the kernels are held against)."""
+        ctx = L.ApplyContext(
+            train=train, compute_dtype=self.compute_dtype, plain=plain,
+            labels=labels, batch_size=self.batch_size,
+            update_period=self.update_period, generator=generator)
         values: Dict[int, torch.Tensor] = {0: data}
         for i, x in enumerate(extra_data):
             values[i + 1] = x
+        # needs-input-grad propagation (model.py:198-215): a layer with
+        # no trainable parameter upstream takes no input gradient
+        has_grad = [False] * self.cfg.num_nodes
         for li, (info, mod) in enumerate(zip(self.cfg.layers, self.modules)):
+            upstream = any(has_grad[ni] for ni in info.nindex_in)
+            ctx.needs_input_grad = upstream
             inputs = [values[ni] for ni in info.nindex_in]
             outputs = mod.apply(self._layer_params(params, li), inputs, ctx)
             for no, v in zip(info.nindex_out, outputs):
                 values[no] = v
-        return values
+            flag = upstream or mod.has_params
+            for no in info.nindex_out:
+                has_grad[no] = flag
+        if ctx.losses:
+            loss = ctx.losses[0]
+            for term in ctx.losses[1:]:
+                loss = loss + term
+        else:
+            loss = torch.zeros((), dtype=torch.float32, device=data.device)
+        return values, loss
 
     @property
     def out_node(self) -> int:

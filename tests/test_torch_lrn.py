@@ -80,3 +80,44 @@ def test_lrn_other_devices_raise_instead_of_falling_back():
 def test_lrn_layer_xla_formulations_are_not_ported(knob, val):
     with pytest.raises(NotImplementedError):
         TL.create_layer("lrn", [(knob, val)])
+
+
+# ----------------------------------------------------------------------
+# the backward: LRNFunction (kernels #2 and #3 on the card, their plain
+# versions here) against jax.vjp of the Pallas custom_vjp
+
+@pytest.mark.parametrize("nsize", [3, 4, 5])
+@pytest.mark.parametrize("beta", [0.75, 1.0])
+def test_lrn_vjp_matches_pallas(nsize, beta):
+    import jax
+    xt, xj = _pair((2, 9, 5, 6), torch.float32, seed=nsize + int(beta * 4))
+    g = np.random.default_rng(nsize).normal(0.0, 1.0, xt.shape).astype(
+        np.float32)
+    out_j, vjp = jax.vjp(lambda a: lrn_pallas(a, nsize, ALPHA, beta, KNORM,
+                                              interpret=True), xj)
+    (gx_j,) = vjp(jnp.asarray(g))
+    x = xt.clone().requires_grad_(True)
+    out = lrn_ops.LRNFunction.apply(x, nsize, ALPHA, beta, KNORM, False)
+    (gx,) = torch.autograd.grad(out, x, torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j),
+                               rtol=1e-5, atol=1e-6)
+    # the same f32 ops in the Pallas order, up to rsqrt/pow ulps, plus
+    # the one subtraction's order noise near zero
+    ref = np.asarray(gx_j)
+    np.testing.assert_allclose(gx.numpy(), ref, rtol=1e-5,
+                               atol=1e-6 * np.abs(ref).max())
+
+
+def test_lrn_layer_takes_the_vjp_path_only_for_a_gradient():
+    x = torch.randn(2, 6, 3, 3) * 3.0
+    # no gradient: the forward alone (kernel #1's plain version)
+    assert torch.equal(lrn_ops.lrn_layer(x, 5, ALPHA, 0.75, KNORM),
+                       lrn_ops.lrn_plain(x, 5, ALPHA, 0.75, KNORM))
+    xg = x.clone().requires_grad_(True)
+    out = lrn_ops.lrn_layer(xg, 5, ALPHA, 0.75, KNORM)
+    assert out.grad_fn is not None and "LRNFunction" in type(
+        out.grad_fn).__name__
+    _, scale = lrn_ops.lrn_fwd_scale(x, 5, ALPHA, 0.75, KNORM)
+    assert scale.dtype == torch.float32
+    assert torch.equal(out.detach(), lrn_ops.lrn_plain(x, 5, ALPHA, 0.75,
+                                                       KNORM))

@@ -189,8 +189,9 @@ def test_slice_matches_jax_float32_on_every_node():
     cfg.configure(tconfig.parse_string(NARROW_ALEXNET))
     net = TNetwork(cfg, BATCH, compute_dtype="float32")
     from cxxnet_tpu_torch.layers import s2d_pack
-    values = net.apply(weights.from_jax_params(params),
-                       torch.from_numpy(s2d_pack(data, 4)))
+    values, loss = net.apply(weights.from_jax_params(params),
+                             torch.from_numpy(s2d_pack(data, 4)))
+    assert float(loss) == 0.0   # no labels, no loss term
     assert sorted(values) == sorted(ref)
     for ni in ref:
         got = values[ni].numpy()
@@ -259,7 +260,12 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
     tr.save_model(path)
     cfg, epoch, params, opt_state, _ = jckpt.load_model(path)
     assert cfg.structure_state() == tr.net_cfg.structure_state()
-    assert opt_state is None
+    # a fresh model's optimizer slots: SGD momentum, zero, per weight
+    for p, s in zip(params, opt_state):
+        assert sorted(p or {}) == sorted(s or {})
+        for tag in p or {}:
+            assert list(s[tag]) == ["m"]
+            assert not s[tag]["m"].any()
     mine = weights.to_jax_params(tr.params)
     assert len(params) == len(mine)
     for a, b in zip(params, mine):
@@ -307,13 +313,19 @@ def test_pooling_edge_rule_matches_jax(kind, h, k, s, pad):
 def test_training_and_unported_layers_raise_naming_their_slice():
     tr = _port_trainer()
     tr.init_model()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tr.net.apply(tr.params, torch.zeros(BATCH, 48, 17, 17), train=True)
+    # training runs now: a train-mode forward with labels has a loss
+    values, loss = tr.net.apply(
+        tr.params, torch.zeros(BATCH, 48, 17, 17),
+        labels=[torch.zeros(BATCH, 1)], train=True,
+        generator=torch.Generator().manual_seed(0))
+    assert values[OUT].shape == (BATCH, 1, 1, 10)
+    assert float(loss.detach()) > 0.0 and loss.requires_grad
+    # the layer types of later slices still raise, naming theirs
     cfg = TNetConfig()
     cfg.configure(tconfig.parse_string(
         "netconfig=start\nlayer[0->1] = batch_norm\nnetconfig=end\n"
         "input_shape = 3,8,8\n"))
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="CNN zoo and data slice"):
         TNetwork(cfg, 2)
 
 
@@ -429,7 +441,7 @@ def test_cli_serves_a_jax_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["task=train"], NotImplementedError),
+    (["task=pred"], NotImplementedError),
     (["task=serve", "export_in=x.bin"], NotImplementedError),
     (["task=serve"], RuntimeError),              # no model_in
 ])
